@@ -5,9 +5,9 @@ STALLED per checkpoint.  The npz backend gathers every factor to host
 numpy and writes one file synchronously; the orbax backend snapshots the
 device buffers and (with wait=False) serializes in the background, so
 the loop stall is only the snapshot.  Measured here on the 8-virtual-
-device CPU mesh (the same rig the sharding suite uses) — on real
-multi-host TPU the gap widens further because the npz gather crosses
-DCN while orbax writes per-host shards.
+device CPU mesh (the same rig the sharding suite uses) — across hosts
+the gap widens further because the npz gather crosses the network
+while orbax writes per-host shards.
 
 Usage: python benchmarks/checkpoint_bench.py [--quick]
 Writes benchmarks/CHECKPOINT_cpu8.json (full run only).

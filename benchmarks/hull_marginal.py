@@ -1,19 +1,17 @@
 """Marginal per-iteration cost of the hull family at the BASELINE #5
 scale (100k x 10k rank-200).
 
-RESULTS_v5e.md quotes whole-call figures for convexnmf/seminmf, which
-bundle the one-time n-by-n Gram (2e13 FLOPs for convexnmf) and compile
-into 10-30 iterations.  The marginal MU iteration itself never touches
-the m-by-n V again (convexnmf.m:94-101 run in Gram space; chnmf.m:177-199
-in (p, n)/(k, n) space), so the steady-state rate is far higher.
+Whole-call figures for convexnmf/seminmf bundle the one-time n-by-n Gram
+(2e13 FLOPs for convexnmf) and compile into 10-30 iterations.  The marginal
+MU iteration itself never touches the m-by-n V again (convexnmf.m:94-101 run
+in Gram space; chnmf.m:177-199 in (p, n)/(k, n) space), so the steady-state
+rate is far higher.
 
 Method: build the SAME solver at two maxiter values (one-time work is
 identical in both programs), time each with the chained-dispatch
 methodology, and report (T(hi) - T(lo)) / (hi - lo).
 
 Usage: python benchmarks/hull_marginal.py {convexnmf|seminmf|chnmf|chcnmf}
-(one solver per process: the relay can crash after several fresh
-compiles in one process — RESULTS_v5e.md.)
 """
 # repo root on sys.path: these scripts run as 'python benchmarks/x.py'
 import pathlib as _pl
@@ -39,7 +37,7 @@ TRIALS = 4  # first discarded
 
 def timed(call, chain0, tag):
     """call(chain_scalar) -> (result_state, fence_scalar); perturbs the
-    init through `chain` so the relay cache never hits."""
+    init through `chain` so no two timed calls see the same input."""
     call(np.float32(1.0))  # warmup/compile
     dts = []
     f = np.float32(1.0)

@@ -1,4 +1,4 @@
-"""Mesh-shape generality sweep (VERDICT r4 item 4).
+"""Mesh-shape generality sweep.
 
 The driver's dryrun pins n_devices=8 (a 2x4 mesh) and the distributed
 artifact pins 2 processes x 4 devices; this sweep shows the mesh /

@@ -1,9 +1,8 @@
 """Serving-style batched factorization: many small spectrograms at once.
 
-One fused vmapped program factorizes a whole request batch — measured on
-a single TPU v5e chip: 256 problems of 257x400 rank-16, 100 MU iterations
-each, in 0.51 s (2 ms per complete factorization).  Shard the batch axis
-over a mesh for multi-chip serving.
+One fused vmapped program factorizes a whole request batch (here 256
+problems of 257x400 rank-16, 100 MU iterations each; time on the H100
+not measured).  Shard the batch axis over a mesh for multi-chip serving.
 
 Run: python examples/batched_serving.py
 """
@@ -53,8 +52,6 @@ def main():
     # request batch only fits encodings (nmf_encode: H-only MU, euclid
     # iterations V-free after a one-time W'V) and is soft-mask separated
     # — all on device (device_output + the jitted nt.separate).
-    # Measured on v5e: ~0.4-0.5 ms per complete 100-iteration encode at
-    # 256 problems (benchmarks/BATCHED_SERVING_v5e.json).
     kA, kB = 10, 6
     Wdict = np.concatenate([bases[0, :, :kA], bases[1, :, :kB]], axis=1)
     Wdict = (Wdict / np.sqrt((Wdict**2).sum(0))).astype(np.float32)
@@ -73,8 +70,7 @@ def main():
     # against the SAME magnitude dictionary with per-source phases
     # (cmfwisa_encode).  The boundary is real planes both ways — a
     # device-resident (V_re, V_im) pair in, (P_re, P_im) planes out —
-    # because complex buffers cannot cross the device boundary on
-    # relay-attached rigs.
+    # so no complex buffer crosses the program boundary.
     import jax.numpy as jnp
     phase = rng.uniform(-np.pi, np.pi, (B, m, n))
     planes = (jnp.asarray(Vs * np.cos(phase), jnp.float32),

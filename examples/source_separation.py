@@ -63,9 +63,9 @@ def main():
 
     # 4+5) serving decode in ONE program: Wiener masks on the COMPLEX
     # mixture (masks are real: the estimates reuse the mixture phase and
-    # sum to Zm exactly) fused with the batched iSTFT — on TPU rigs whose
-    # boundary can't carry complex buffers, pass stft(..., planes=True)
-    # output instead of Zm (same function, real-only boundary)
+    # sum to Zm exactly) fused with the batched iSTFT — to keep every
+    # boundary buffer real, pass stft(..., planes=True) output instead
+    # of Zm (same function)
     ys = np.asarray(nt.separate_waveforms(Zm, [WA, WB], [HA, HB],
                                           hop_length=hop, length=len(mix)))
     ya, yb = ys[0], ys[1]

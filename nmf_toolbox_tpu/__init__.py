@@ -1,9 +1,10 @@
-"""nmf_toolbox_tpu — a TPU-native non-negative matrix factorization framework.
+"""nmf_toolbox_tpu — an accelerator-native non-negative matrix factorization
+framework.
 
 A from-scratch JAX/XLA re-design with the capabilities of the MATLAB
 "NMF Toolbox" (colinvaz/nmf-toolbox): eleven solver families, the full
-config/parameter surface, and utilities — built TPU-first (Gram-form
-updates, on-device convergence loops, Pallas fused kernels, mesh
+config/parameter surface, and utilities — built device-first (Gram-form
+updates, on-device convergence loops, a Pallas/Triton KL kernel, mesh
 sharding) rather than as a translation.
 """
 from .core import EPS, Result

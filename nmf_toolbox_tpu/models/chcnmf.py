@@ -1,6 +1,6 @@
 """Convex-hull convolutive NMF (Vaz 2016): V ~ sum_t S G[:, :, t] H^(t).
 
-TPU-native re-design of chcnmf.m (the live code path; the reference's
+Accelerator re-design of chcnmf.m (the live code path; the reference's
 ~150 lines of commented-out Hoyer/given-W branches are dead code and not
 ported — chcnmf.m:244-296,323-366,384-424).
 
@@ -8,7 +8,7 @@ The reference keeps an encoding-space reconstruction F = sum_t G_t H^(t)
 (p-by-n) and updates it incrementally with a clamp after each frame's
 multiplicative step (chcnmf.m:315,363-368).  Because of that clamp the
 frame loop is inherently sequential; it stays a (static, unrolled) loop
-over T.  Everything else is restructured for the MXU:
+over T.  Everything else is restructured for dense matmuls:
 
 * the H-gradient accumulation over shifted sparse identities
   (chcnmf.m:374-383) uses shift_left(G_t'(S_V_pos + S_S_neg F), t) — no

@@ -1,6 +1,6 @@
 """Convex-hull NMF (Thurau et al. 2011): V ~ S G H, S = hull anchors of V.
 
-TPU-native re-design of chnmf.m.  The expensive one-time init (covariance
+Accelerator re-design of chnmf.m.  The expensive one-time init (covariance
 eigenvectors + per-pair 2-D convex hulls, chnmf.m:85-106) lives in
 utils/init.convex_hull_anchors — eigvecs via on-device eigh or randomized
 subspace iteration (the m-by-m covariance is never materialized for large
@@ -43,14 +43,12 @@ class _Spec(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def _build_solver(spec: _Spec):
     # The one-time Grams arrive as ARGUMENTS, computed eagerly at the
-    # entry (chcnmf.py pattern): TPU XLA's memory-pressure-driven
-    # rematerialization recomputes large loop-invariant buffers inside
-    # the while_loop body every iteration, so the in-program S'V
-    # (p*m*n FLOP, a p-by-n buffer produced from the 4 GB V) was paid
-    # every iteration — measured 19.3 ms/iter marginal at 100k x 10k
-    # p400, the Gram's own cost; as executable arguments the loop runs
-    # at 0.09 ms/iter (210x, benchmarks/GRAM_FAMILY_MARGINAL_v5e.json,
-    # round 3).  The solver never touches the m-sized axis at all now.
+    # entry (chcnmf.py pattern): XLA's memory-pressure-driven
+    # rematerialization may recompute large loop-invariant buffers
+    # inside the while_loop body every iteration, so an in-program S'V
+    # (p*m*n FLOP, a p-by-n buffer produced from the 4 GB V) could be
+    # paid every iteration.  As executable arguments they cannot be
+    # rematerialized; the solver never touches the m-sized axis at all.
     @jax.jit
     def solve(StV, StS, G0, H0, v_sq, g_sparsity, h_sparsity, tolerance):
         eps = jnp.asarray(spec.eps, StV.dtype)

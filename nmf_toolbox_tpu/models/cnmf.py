@@ -1,6 +1,6 @@
 """Convolutive NMF (Smaragdis 2007) with unified AB-divergence updates.
 
-TPU-native re-design of cnmf.m.  The reference's per-shift t-loops
+Accelerator re-design of cnmf.m.  The reference's per-shift t-loops
 (cnmf.m:180-195, 216-227) become batched matmuls over stacked shifts
 (ops/shift.py): the W gradient for all T frames is ONE einsum against the
 (T, k, n) stack of right-shifted H's, and the H gradient accumulation
@@ -220,24 +220,18 @@ def cnmf(V, num_basis_elems, context_len: int,
 
     ``cost_every`` (int, default 1): evaluate the objective every N
     iterations — the update math is unchanged (bit-exact on CPU;
-    tests/test_cost_every.py), the tolerance check coarsens to
-    N-iteration windows (ops/loop.cost_cadence).  On TPU the cadence
-    variant is a different compiled program and the cond boundary
-    blocks XLA from fusing the objective with the update fields, so
-    f32 matmul rounding differs and compounds through the MU chain:
-    measured max rel deviation ~1e-4 (KL) / ~8e-4 (euclid Gram) in W
-    after 30 iters at a 257x400 r6 T4 probe — the same order as the
-    chip's bf16-matmul deviation from the f64 oracle, and far inside
-    MU's own trajectory sensitivity.  (Plain ``nmf`` measured
-    bit-exact on chip at the same cadences.)  The
-    convolutive objective is expensive (a full T-shift reconstruction
-    plus the divergence pass for the naive path; the WW/HH cross-Gram
-    recomputation for the Gram path) and feeds only the stopping rule.
-    Measured caveat (COST_EVERY_v5e.json): at BASELINE #3's 513x10k
-    r64 T8 shape iterations are sub-ms and the while-loop's per-step
-    cond overhead offsets the saving (a wash); the knob pays on
-    larger shapes, weighted modes, and the batched ``cnmf_encode``
-    engine (+18% at the serving shape), which is cond-free.
+    tests/test_cost_every.py), the tolerance check coarsens to N-iteration
+    windows (ops/loop.cost_cadence).  On an accelerator the cadence variant
+    is a different compiled program and the cond boundary blocks XLA from
+    fusing the objective with the update fields, so float32 matmul rounding
+    may differ and compound through the MU chain, at the order of the
+    default-precision matmul's own deviation from the float64 oracle.  The
+    convolutive objective is expensive (a full T-shift reconstruction plus
+    the divergence pass for the naive path; the WW/HH cross-Gram
+    recomputation for the Gram path) and feeds only the stopping rule.  At
+    small shapes (BASELINE #3's 513x10k r64 T8) the while-loop's per-step
+    cond overhead can offset the saving; the batched ``cnmf_encode`` engine
+    is cond-free.
     """
     cfg = merge_config(config, kwargs)
     dtype = resolve_dtype(V, cfg.get("dtype"))

@@ -1,6 +1,6 @@
 """Convolutive NMF with Hoyer sparseness constraints (Ramanarayanan 2013).
 
-TPU-native re-design of cnmfsc.m — the most stateful solver in the
+Accelerator re-design of cnmfsc.m — the most stateful solver in the
 toolbox.  Reproduced semantics (validated against a literal NumPy oracle):
 
 * double-buffered basis: updates read W0 and write W, committed at the
@@ -16,7 +16,7 @@ toolbox.  Reproduced semantics (validated against a literal NumPy oracle):
 * the non-sparse H MU guard is (pos + eps), not max(pos, eps)
   (cnmfsc.m:202).
 
-TPU-first details: all line-search trial objectives are evaluated in Gram
+Device-first details: all line-search trial objectives are evaluated in Gram
 form.  With the basis frozen, 0.5||V - sum_t W_t H^(t)||^2 reduces to
 cross-Grams WW[t,s] = W_t'W_s against shifted-H Grams — O(T^2 k^2 n) per
 trial instead of a T-batched m-by-n reconstruction.  The only full-size
@@ -250,7 +250,7 @@ def cnmfsc(V, num_basis_elems: int, context_len: int,
                  eps, float(l1_w), float(l1_h), valid,
                  resolve_width(cfg.get("linesearch_width"), mesh))
     # 'highest' matmul precision for the line-search objectives (no-op on
-    # CPU) — same f32-on-TPU stall hazard as nmfsc (models/nmfsc_phased.py).
+    # CPU) — same TF32 cancellation hazard as nmfsc (models/nmfsc.py).
     with jax.default_matmul_precision("highest"):
         out = _build_solver(spec)(V, W0, W_proj, H0,
                                   jnp.asarray(tolerance, dtype),

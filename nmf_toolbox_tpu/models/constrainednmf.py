@@ -1,6 +1,6 @@
 """Semi-supervised NMF with hard label constraints (Liu & Wu 2010).
 
-TPU-native re-design of constrainednmf.m: V ~ W Z A where A is the fixed
+Accelerator re-design of constrainednmf.m: V ~ W Z A where A is the fixed
 label-structure block matrix [I 0; 0 C] (unlabeled samples first,
 constrainednmf.m:160-172) and H = Z A.
 

@@ -1,6 +1,6 @@
 """Convex NMF (Ding, Li & Jordan 2010): V ~ (V G) H with G, H >= 0.
 
-TPU-native re-design of convexnmf.m.  The n-by-n Gram V'V is computed
+Accelerator re-design of convexnmf.m.  The n-by-n Gram V'V is computed
 once and split into positive/negative parts (convexnmf.m:86-87); the MU
 updates are re-associated so no extra n-by-n intermediate beyond the
 Grams is materialized:
@@ -50,15 +50,13 @@ class _Spec(NamedTuple):
 def _build_solver(spec: _Spec):
     # The one-time Grams arrive as ARGUMENTS of this executable, computed
     # eagerly at the entry point (same pattern as chcnmf.py).  Keeping
-    # them as in-program intermediates looks equivalent but is not: TPU
-    # XLA's memory-pressure-driven rematerialization recomputes LARGE
+    # them as in-program intermediates looks equivalent but is not: XLA's
+    # memory-pressure-driven rematerialization may recompute LARGE
     # loop-invariant buffers (the n-by-n Grams, 400 MB at n=10k) inside
     # the while_loop body every iteration rather than keeping them live —
-    # V'V is 2e13 FLOP at 100k x 10k, measured as a 220 ms/iter marginal,
-    # ~60x the loop's roofline; with the Grams as executable arguments
-    # (which cannot be rematerialized) the same loop runs at 0.86 ms/iter
-    # (255x, benchmarks/GRAM_FAMILY_MARGINAL_v5e.json, round 3).  Scalar
-    # invariants (v_sq) are not affected but ride along as arguments.
+    # and V'V is 2e13 FLOP at 100k x 10k.  Executable arguments cannot be
+    # rematerialized.  Scalar invariants (v_sq) are not affected but
+    # ride along as arguments.
     @jax.jit
     def solve(grams, G0, H0, v_sq, g_sparsity, tolerance):
         if spec.nonneg:

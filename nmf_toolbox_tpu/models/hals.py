@@ -76,7 +76,7 @@ def _build_weighted_solver(spec: _Spec):
         def step(carry, i):
             W, H, R = carry
             # denominators are loop-invariant within each half-sweep (the
-            # OTHER factor is fixed): one batched MXU matmul instead of k
+            # OTHER factor is fixed): one batched matmul instead of k
             # serialized matvecs inside the fori_loop
             Dw = jnp.maximum(M @ (H * H).T, eps)        # (m, k)
 

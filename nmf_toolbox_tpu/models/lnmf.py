@@ -1,11 +1,11 @@
 """Local NMF (Li et al. 2001) — KL-based, column-sum-1 basis.
 
-TPU-native re-design of lnmf.m.  Distinctives preserved from the
+Accelerator re-design of lnmf.m.  Distinctives preserved from the
 reference: the sqrt H update (lnmf.m:81), the column-sum normalization of
 W (lnmf.m:64,75), the <=-style convergence comparison, and the quirk that
 the cost vector is NOT trimmed on early exit (lnmf.m:89-91).
 
-TPU notes: the W-update denominator ones(m,n) @ H' (lnmf.m:74) is a
+Device notes: the W-update denominator ones(m,n) @ H' (lnmf.m:74) is a
 broadcast of H's row sums — no m-by-n ones matrix is ever built.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """NMF with multiplicative updates over four divergences.
 
-TPU-native re-design of the reference solver (nmf.m):
+Accelerator re-design of the reference solver (nmf.m):
 
 * Multi-source "cell arrays" (nmf.m:114-117) become static column blocks
   of one concatenated (m, k_total) basis — the per-source diagonal
@@ -41,6 +41,9 @@ from ..parallel import (apply_placements, pad_axes, plan_padding,
                         prepare_weights)
 
 
+FUSED_MAX_K = 128  # method='fused': rank the kernel's tiles are sized for
+
+
 class _Spec(NamedTuple):
     divergence: str
     alpha: float
@@ -55,6 +58,7 @@ class _Spec(NamedTuple):
     valid: tuple = None      # (m, n) true sizes of a mesh-padded problem
     inner: int = 1           # accelerated-MU inner repetitions (gram only)
     cost_every: int = 1      # objective cadence (1 = reference semantics)
+    interpret: bool = False  # 'fused' on CPU: Pallas interpreter
 
 
 def _kl_ones_b(H, m):
@@ -108,7 +112,7 @@ def _build_solver_impl(spec: _Spec):
         cdt = jnp.promote_types(V.dtype, jnp.float32)  # accumulation dtype
 
         def vdot(A, B):
-            # V may be stored bf16 (data_dtype option): feed the MXU the
+            # V may be stored bf16 (data_dtype option): feed the matmul the
             # storage dtype, accumulate in f32.
             return jax.lax.dot(A, B.astype(A.dtype),
                                preferred_element_type=cdt)
@@ -188,52 +192,33 @@ def _build_solver_impl(spec: _Spec):
         return step
 
     def fused_step(V, v_sq, wsp, hsp, eps):
-        """KL/IS iteration through the fused Pallas kernels: the m-by-n
-        reconstruction and ratio fields never touch HBM (ops/pallas)."""
-        from ..ops import pallas as plk
-        m, n = V.shape
-        kl = div == "kl"
-        # Field-independent cost constants.
-        if kl:
-            c_const = jnp.sum(V * jnp.log(V)) - jnp.sum(V)  # nmf.m:210
-        else:
-            c_const = -jnp.sum(jnp.log(V)) - m * n          # nmf.m:212
+        """KL iteration whose W phase ``(V / (W @ H)) @ H'`` runs as one
+        Pallas/Triton kernel (ops/fused_kl.py): the m-by-n reconstruction
+        and ratio fields of that phase never reach device memory.  The H
+        phase and the cost are the naive step's."""
+        from ..ops.fused_kl import kl_ratio_dot_ht
+        n = V.shape[1]
 
         def step(carry, i):
             W, H = carry[0], carry[1]
             if w_any:
-                if kl:
-                    A = plk.phi_dot_ht(V, W, H, "kl")
-                    h_rowsum = jnp.sum(H, axis=1)
-                    dneg = jnp.sum(W, axis=0) * h_rowsum
-                    dpos = jnp.sum(W * A, axis=0)
-                    neg = A + W * dneg[None, :]
-                    pos = h_rowsum[None, :] + W * dpos[None, :]
-                else:
-                    A, B = plk.phi_dot_ht(V, W, H, "is")
-                    dneg = jnp.sum(W * B, axis=0)
-                    dpos = jnp.sum(W * A, axis=0)
-                    neg = A + W * dneg[None, :]
-                    pos = B + W * dpos[None, :]
+                A = kl_ratio_dot_ht(V, W, H, interpret=spec.interpret)
+                h_rowsum = jnp.sum(H, axis=1)
+                dneg = jnp.sum(W, axis=0) * h_rowsum
+                dpos = jnp.sum(W * A, axis=0)
+                neg = A + W * dneg[None, :]
+                pos = h_rowsum[None, :] + W * dpos[None, :]
                 Wn = W * (neg / jnp.maximum(pos + wsp[None, :], eps))
                 Wn = unit_l2_columns(Wn)
                 W = Wn if w_all_free else jnp.where(w_mask[None, :], W, Wn)
             if h_any:
-                if kl:
-                    neg = plk.wt_dot_phi(V, W, H, "kl")
-                    pos = jnp.sum(W, axis=0)[:, None]
-                else:
-                    neg, pos = plk.wt_dot_phi(V, W, H, "is")
+                neg = W.T @ (V / (W @ H))
+                pos = _kl_ones_pos_h(W, n)
                 Hn = H * (neg / jnp.maximum(pos + hsp[:, None], eps))
                 H = Hn if h_all_free else jnp.where(h_mask[:, None], H, Hn)
+
             def cost_fn():
-                if kl:
-                    s = plk.cost_terms(V, W, H, "kl")
-                    sum_vhat = jnp.sum(W, axis=0) @ jnp.sum(H, axis=1)
-                    c = c_const - s + sum_vhat
-                else:
-                    s1, s2 = plk.cost_terms(V, W, H, "is")
-                    c = c_const + s1 + s2
+                c = dv.cost(div, V, W @ H, alpha, beta)
                 return c + _sparsity_penalty(W, H, wsp, hsp)
             return finish_step(W, H, carry, i, cost_fn)
         return step
@@ -266,10 +251,11 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     only), ``W_init``/``H_init`` (array or per-source list),
     ``W_sparsity``/``H_sparsity``, ``W_fixed``/``H_fixed``,
     ``maxiter`` (100), ``tolerance`` (1e-3).  Extras: ``dtype``, ``seed``,
-    ``method`` ('auto' | 'gram' | 'naive'), ``eps``, ``init``
-    ('nndsvd*' seeding), ``inner_iters`` (accelerated MU, euclidean Gram
-    path), ``weights`` ((m, n) nonnegative per-entry weights — minimizes
-    sum(weights * d(V, WH)); zero weights mark missing entries),
+    ``method`` ('auto' | 'gram' | 'naive' | 'fused': KL only, float32,
+    k <= 128, one GPU — the W phase as one Pallas/Triton kernel), ``eps``,
+    ``init`` ('nndsvd*' seeding), ``inner_iters`` (accelerated MU, euclidean
+    Gram path), ``weights`` ((m, n) nonnegative per-entry weights —
+    minimizes sum(weights * d(V, WH)); zero weights mark missing entries),
     ``cost_every`` (int, default 1: evaluate the objective every N
     iterations instead of every iteration — the objective feeds only the
     stopping rule (nmf.m:221-224), never the updates, so the factor
@@ -313,23 +299,29 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
             raise ValueError("weights= requires method='naive' (the "
                              "weighted fields are nonlinear in W @ H)")
     if method == "auto":
-        # 'fused' (Pallas) is numerically equivalent at f32 but measured
-        # slower than XLA's own fusion of the naive path on v5e (15 vs
-        # 7.2 ms/iter at 40k x 10k r100 KL, with bf16 MXU dots and VMEM
-        # scratch accumulation) — XLA already avoids materializing the
-        # ratio field and pipelines better than the hand-written grid.
-        # Keep it opt-in; benchmarks/RESULTS_v5e.md records the numbers.
+        # 'fused' stays opt-in: it covers KL only, float32, one device.
         method = "gram" if div == "euclidean" else "naive"
     if method == "gram" and div != "euclidean":
         raise ValueError("method='gram' is only valid for the euclidean divergence")
+    interpret = False
     if method == "fused":
-        if div not in ("kl", "is"):
-            raise ValueError("method='fused' is only valid for kl/is divergences")
+        if div != "kl":
+            raise ValueError("method='fused' is only valid for the kl "
+                             "divergence")
         if dtype != jnp.float32:
             raise ValueError("method='fused' requires float32")
-        if k_total > 1024:
-            raise ValueError("method='fused' supports k <= 1024 (the factor "
-                             "blocks must fit VMEM); use method='naive'")
+        if k_total > FUSED_MAX_K:
+            raise ValueError(f"method='fused' supports k <= {FUSED_MAX_K} "
+                             "(the kernel's register tiles); use "
+                             "method='naive'")
+        if cfg.get("mesh") is not None:
+            raise ValueError("method='fused' runs on one device; use "
+                             "method='naive' with a mesh")
+        platform = next(iter(V.devices())).platform
+        if platform not in ("gpu", "cpu"):
+            raise ValueError(f"method='fused' needs a GPU, got {platform!r}")
+        # The CPU runs the kernel in the Pallas interpreter (tests only).
+        interpret = platform == "cpu"
 
     w_sp = promote_per_source(cfg.get("W_sparsity"), S, "W_sparsity", 0.0)
     h_sp = promote_per_source(cfg.get("H_sparsity"), S, "H_sparsity", 0.0)
@@ -394,10 +386,6 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     mesh = cfg.get("mesh")
     pad_m, pad_n, valid = plan_padding(mesh, m, n)
     if valid is not None:
-        if method == "fused":
-            raise ValueError(
-                "method='fused' does not support mesh shapes that need "
-                "padding; use a divisible (m, n) or method='naive'")
         V = pad_axes(V, {0: pad_m, 1: pad_n})
         W0 = pad_axes(W0, {0: pad_m})
         H0 = pad_axes(H0, {1: pad_n})
@@ -416,7 +404,8 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
             "repetitions would still need the full-size reconstruction")
 
     spec = _Spec(div, alpha, beta, method, maxiter, w_fx, h_fx, blocks, eps,
-                 cfg.get("callback"), valid, inner, parse_cost_every(cfg))
+                 cfg.get("callback"), valid, inner, parse_cost_every(cfg),
+                 interpret)
     solve = _build_solver(spec)
     tol = jnp.asarray(tolerance, dtype)
     if weights is None:

@@ -12,7 +12,7 @@ activations.  On a log-frequency spectrogram one basis element then
 covers every transposition of a note, which plain cnmf needs k x P
 elements for.
 
-TPU-first structure: every 2-D-shifted product factors through the
+Device-first structure: every 2-D-shifted product factors through the
 cnmf ops via the adjoint identity shift_down(W, p)' @ X ==
 W' @ shift_up(X, p) (ops/shift.py), so
 

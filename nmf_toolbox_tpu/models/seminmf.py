@@ -1,6 +1,6 @@
 """Semi-NMF (Ding, Li & Jordan 2010): W unconstrained, H >= 0.
 
-TPU-native re-design of seminmf.m: the exact W solve V H' / (H H')
+Accelerator re-design of seminmf.m: the exact W solve V H' / (H H')
 (seminmf.m:68) becomes an LU solve of the k-by-k Gram on device; the
 sqrt multiplicative H update uses pos/neg Gram splits (seminmf.m:73-77 —
 note the reference has no eps guard here, preserved).  The Euclidean cost
@@ -34,11 +34,9 @@ class _Spec(NamedTuple):
 def _build_solver(spec: _Spec):
     # v_sq arrives as an argument, following the gram-family convention
     # (convexnmf.py's rematerialization note: large loop-invariant
-    # buffers MUST be executable arguments on TPU; a kept scalar is safe
-    # either way, and hoisting it keeps one pattern across solvers).
-    # Direct-solve marginal at 100k x 10k r200: 7.26 ms/iter — the two
-    # unavoidable m*n*k products per iteration (V H' and W'V) at MXU
-    # rate (benchmarks/GRAM_FAMILY_MARGINAL_v5e.json).
+    # buffers MUST be executable arguments; a kept scalar is safe either
+    # way, and hoisting it keeps one pattern across solvers).  Each
+    # iteration does the two unavoidable m*n*k products (V H' and W'V).
     @jax.jit
     def solve(V, W0, H0, v_sq, tolerance):
         # Pad columns of the sqrt MU ratio are 0/0 (the reference's update

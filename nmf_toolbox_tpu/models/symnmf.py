@@ -14,8 +14,8 @@ fixed points are the symmetric KKT points):
 
     H <- H * (1/2 + 1/2 * (A H) / (H (H' H)))
 
-TPU notes: one (n, n) x (n, k) product (A H) plus (k, k) Gram work per
-iteration — MXU-dense, no reconstruction of H H' is ever materialized;
+Device notes: one (n, n) x (n, k) product (A H) plus (k, k) Gram work per
+iteration — matmul-dense, no reconstruction of H H' is ever materialized;
 the cost uses the Gram identity ||A - H H'||^2 = ||A||^2
 - 2 <A H, H> + ||H'H||^2, whose f32 cancellation floor is
 ~||A||^2 * eps_f32 (late-plateau cost entries can tick up by that much

@@ -5,7 +5,7 @@ negative parts (convexnmf.m:86-87, seminmf.m:73-76, chnmf.m:169-172):
 
     A_pos = (|A| + A) / 2,   A_neg = (|A| - A) / 2.
 
-The Euclidean cost identities below are the TPU-first core of this
+The Euclidean cost identities below are the device-first core of this
 framework: 0.5*||V - W H||_F^2 is evaluated from k-by-k Grams without
 ever materializing the m-by-n reconstruction, turning the reference's
 ~6 full-size matmuls per iteration into 2 (SURVEY.md section 2.4).

@@ -1,4 +1,4 @@
-"""Hoyer's L1/L2 sparsity projection, vectorized for TPU.
+"""Hoyer's L1/L2 sparsity projection, vectorized for the accelerator.
 
 Solves, for each column s of S: find v minimizing ||v - s||_2 subject to
 sum(v) = k1, sum(v^2) = k2, v >= 0.  Reference: projfunc.m (Hoyer 2004).

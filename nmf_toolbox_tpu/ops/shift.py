@@ -52,8 +52,9 @@ def conv_reconstruct(W, H, n_valid: int | None = None):
     """Convolutive reconstruction V_hat = sum_t W[:, :, t] @ shift_right(H, t).
 
     Reference: ReconstructFromDecomposition.m:32-38.  W is (m, k, T).
-    Implemented as ONE batched matmul over the stacked shifts so the MXU
-    sees a single (T, m, n) contraction instead of T small matmuls.
+    Implemented as ONE batched matmul over the stacked shifts so the
+    matmul units see a single (T, m, n) contraction instead of T small
+    matmuls.
     ``n_valid``: see :func:`stack_shifts_right`.
     """
     T = W.shape[2]

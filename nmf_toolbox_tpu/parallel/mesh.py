@@ -1,7 +1,7 @@
 """Device-mesh sharding for the solver family (SURVEY.md section 2.5).
 
 The reference is single-threaded MATLAB; all parallelism here is
-greenfield TPU design.  The strategy:
+greenfield accelerator design.  The strategy:
 
 * V (m, n) shards over samples (columns) and optionally features (rows)
   on a 1-D or 2-D mesh; H (k, n) shards with V's columns; W (m, k)
@@ -158,9 +158,10 @@ def init_distributed(coordinator_address=None, num_processes=None,
 
     Call once per process before building a mesh in a multi-host run;
     ``make_mesh()`` then sees every host's devices via jax.devices() and
-    the solver placements work unchanged — XLA routes the Gram psums over
-    ICI within a slice and DCN across slices (SURVEY.md section 2.5).
-    No-op arguments use JAX's environment auto-detection (TPU pods).
+    the solver placements work unchanged — XLA routes the Gram psums
+    over the fastest link within a host and the network across hosts
+    (SURVEY.md section 2.5).  No-op arguments use JAX's environment
+    auto-detection where the cluster provides it.
     """
     import jax
     jax.distributed.initialize(coordinator_address=coordinator_address,

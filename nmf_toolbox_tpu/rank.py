@@ -3,7 +3,7 @@
 The reference leaves ``num_basis_elems`` entirely to the user (every
 solver takes it as a required argument, e.g. nmf.m:1, cnmf.m:1); picking
 it is the first question every practitioner actually faces.  This module
-adds the two standard data-driven answers, built TPU-first:
+adds the two standard data-driven answers, built device-first:
 
 1. **Spectral energy** (`estimate_rank_svd`): the smallest k whose
    truncated spectrum captures a target fraction of ||V||_F^2.  Uses the
@@ -218,7 +218,7 @@ def consensus_stability(V, ranks, n_seeds: int = 20,
     if not ranks:
         raise ValueError("ranks must be a non-empty sequence")
     # Upload V once; the per-rank jnp.asarray inside nmf_multiseed is
-    # then a no-op (a relay transfer per candidate otherwise).
+    # then a no-op (a host transfer per candidate otherwise).
     V = jnp.asarray(V, resolve_dtype(V, cfg.get("dtype")))
     stats: list[RankStats] = []
     for k in ranks:

@@ -16,7 +16,7 @@ periodic Hann window, ``center=True`` reflect-pads by n_fft//2 so frame
 whenever the window/hop pair satisfies NOLA — true for hann at any
 hop <= n_fft//2.
 
-TPU notes: ``jnp.fft.rfft``/``irfft`` lower to XLA's native FFT; the
+Device notes: ``jnp.fft.rfft``/``irfft`` lower to XLA's native FFT; the
 framing gather and the overlap-add scatter are one-time front-end ops,
 off every solver's hot loop.  Both transforms are shape-static, jit
 cleanly, and batch over any leading dims (channels, batch of clips),
@@ -109,10 +109,8 @@ def stft(x, n_fft: int = 512, hop_length: int | None = None,
 
     ``planes=True`` returns the REAL stack ``(2, ..., freq, time)`` of
     (real, imag) planes instead, computed in the same single program:
-    the boundary then carries only real buffers, for runtimes whose
-    transfer layer cannot ship complex arrays between programs (e.g.
-    relay-attached TPU workers; models/cmfwisa.py uses the same
-    convention) — pair with ``istft(..., planes=True)`` and
+    the boundary then carries only real buffers (models/cmfwisa.py uses
+    the same convention) — pair with ``istft(..., planes=True)`` and
     ``separation.separate_waveforms``.
 
     ``center=True`` (default) reflect-pads by ``n_fft // 2`` so frames
@@ -225,8 +223,7 @@ def magnitude(Z, power: float = 1.0, planes: bool = False):
 
     ``planes=True``: ``Z`` is the real ``(2, ...)`` (real, imag) stack
     from ``stft(..., planes=True)`` — the magnitude is then computed
-    without any complex buffer at the boundary, in ONE jitted dispatch
-    (serving pipelines on relay backends pay ~40-60 ms per dispatch)."""
+    without any complex buffer at the boundary, in ONE jitted dispatch."""
     Z = jnp.asarray(Z)
     if planes:
         if jnp.iscomplexobj(Z) or Z.shape[0] != 2:

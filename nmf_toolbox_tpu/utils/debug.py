@@ -56,84 +56,57 @@ def iteration_logger(prefix: str = "iter"):
 
 
 @contextlib.contextmanager
-def emulate_tpu_matmul_numerics():
-    """CPU-side emulation of TPU f32 matmul numerics (one-pass bf16
-    inputs, f32 accumulation — the MXU's default f32 behavior).
+def emulate_tf32_matmul_numerics():
+    """CPU-side emulation of GPU float32 matmul numerics at the default
+    precision: TF32 tensor-core operands (10-bit mantissa, float32
+    exponent range) with float32 accumulation.
 
-    Inside the context, every f32 ``dot_general`` traced under jit gets
-    its operands rounded to bfloat16 with a float32 accumulator —
-    exactly the error model the real chip applies — so golden-parity
-    thresholds can be calibrated against the worse of {CPU-f32,
-    CPU-bf16-matmul} with zero chip time (the round-2 f32/bf16 bug
-    class).  Elementwise ops stay f32, matching the chip.
+    Inside the context, every float32 ``dot_general`` traced under jit
+    at the default precision gets its operands rounded to TF32 with
+    ``lax.reduce_precision`` -- the error model the card applies -- so
+    golden-parity thresholds can be calibrated against the worse of
+    {CPU-f32, CPU-TF32-matmul} without a GPU.  Elementwise ops stay
+    float32, as on the card.  ``reduce_precision`` is an explicit op, so
+    XLA keeps it whatever its excess-precision setting.
 
-    REQUIRES ``XLA_FLAGS=--xla_allow_excess_precision=false`` in the
-    environment before jax initializes: with excess precision allowed
-    (the default) XLA legally folds the f32->bf16->f32 rounding away
-    and the emulation silently measures plain f32.  A RuntimeError
-    guards against that silent no-op.
-
-    Interception point: ``dot_general_p.bind_with_trace`` — the one
-    funnel every jnp matmul/einsum/@ passes through under tracing.
-    The bf16 casts are bound through the SAME trace object so the
-    rewrite composes with jit/scan/while_loop/vmap.  Complex64 dots are
-    left untouched (the CPU backend keeps them full-precision; on TPU
-    they decompose to f32 dots, so complex-path calibration still needs
-    the chip).  Emulation-only diagnostic: never use in the product
+    Interception point: ``dot_general_p.bind_with_trace`` -- the one
+    funnel every jnp matmul/einsum/@ passes through under tracing.  The
+    rounding is bound through the same trace object so the rewrite
+    composes with jit/scan/while_loop/vmap.  Complex64 dots are left
+    untouched.  Emulation-only diagnostic: never use in the product
     path.
     """
-    import os
-    if "--xla_allow_excess_precision=false" not in \
-            os.environ.get("XLA_FLAGS", ""):
-        raise RuntimeError(
-            "emulate_tpu_matmul_numerics needs "
-            "XLA_FLAGS=--xla_allow_excess_precision=false set before "
-            "jax starts; without it XLA folds the bf16 rounding away "
-            "and the emulation is a silent no-op")
     from jax._src.lax import lax as _lax
-    import jax.numpy as jnp
     prim = _lax.dot_general_p
-    cet = _lax.convert_element_type_p
+    rp = _lax.reduce_precision_p
     orig = prim.bind_with_trace
     f32 = np.dtype("float32")
-    bf16 = np.dtype(jnp.bfloat16)
 
-    def _round_bf16(trace, x):
-        # f32 -> bf16 -> f32 ROUNDING, then an ordinary f32 dot: the
-        # product of two bf16 values is exact in f32 (8-bit mantissas),
-        # so this equals a bf16xbf16->f32-accumulate dot — the MXU's
-        # one-pass behavior — while staying on dot shapes XLA:CPU can
-        # execute (its DotThunk rejects BF16xBF16=F32 for some batched
-        # forms).  The excess-precision flag keeps XLA from folding the
-        # round-trip away.
-        for dt in (bf16, f32):
-            x = cet.bind_with_trace(
-                trace, (x,), dict(new_dtype=dt, weak_type=False,
-                                  sharding=None))
-        return x
+    def _round_tf32(trace, x):
+        return rp.bind_with_trace(trace, (x,), dict(exponent_bits=8,
+                                                   mantissa_bits=10))
 
     def _is_default_precision(p):
         if p is None:
             return True
-        import jax
         vals = p if isinstance(p, tuple) else (p,)
         return all(v in (None, jax.lax.Precision.DEFAULT) for v in vals)
 
     def bwt(trace, args, params):
         lhs, rhs = args
         # Explicitly raised precision (e.g. the nmfsc line search's
-        # 'highest') runs multi-pass on the chip too — leave it f32.
+        # 'highest') runs in full float32 on the card too.
         if (getattr(lhs, "dtype", None) == f32
                 and getattr(rhs, "dtype", None) == f32
                 and _is_default_precision(params.get("precision"))):
-            lhs = _round_bf16(trace, lhs)
-            rhs = _round_bf16(trace, rhs)
+            lhs = _round_tf32(trace, lhs)
+            rhs = _round_tf32(trace, rhs)
         return orig(trace, (lhs, rhs), params)
 
     # jnp's ops are internally jit(inline=True)-wrapped and cache their
-    # traced jaxprs by aval: a matmul shape traced BEFORE entry would
-    # silently bypass the emulation, and one traced INSIDE would leak
-    # the bf16 rounding out after exit.  Flush on both edges.
+    # traced jaxprs by aval: a matmul shape traced before entry would
+    # silently bypass the emulation, and one traced inside would leak
+    # the rounding out after exit.  Flush on both edges.
     jax.clear_caches()
     prim.bind_with_trace = bwt
     try:

@@ -272,7 +272,7 @@ def test_griffinlim_batched_and_errors():
 
 def test_planes_boundary_matches_complex():
     """stft/istft planes=True: identical math, REAL boundary buffers
-    (the relay-safe serving form; utils/audio.py docstrings)."""
+    (the real-boundary serving form; utils/audio.py docstrings)."""
     rng = np.random.default_rng(21)
     x = rng.normal(size=3000).astype(np.float32)
     Z = nt.stft(x, n_fft=256, hop_length=64)

@@ -581,7 +581,7 @@ def test_cmfwisa_encode_sharded_and_validation():
         nt.cmfwisa_encode(Vs[0], W)
     with pytest.raises(ValueError, match="W_fixed"):
         nt.cmfwisa_encode(Vs, W, W_fixed=True)
-    # device_output: P comes back as real planes (relay-safe contract)
+    # device_output: P comes back as real planes (real-boundary contract)
     d = nt.cmfwisa_encode(Vs, W, H_init=H0, maxiter=8,
                           dtype=np.complex128, device_output=True)
     assert isinstance(d.H, jax.Array)

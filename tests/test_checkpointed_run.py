@@ -109,7 +109,7 @@ def test_chunked_cnmf_exact(tmp_path):
 
 
 def test_chunked_nmfsc_bit_exact(tmp_path):
-    """VERDICT r2 item 2: chunked nmfsc must be bit-identical to
+    """Chunked nmfsc must be bit-identical to
     single-dispatch — requires the line-search stepsizes (nmfsc.m:147,178)
     to ride through Result.resume_state and the checkpoint file."""
     rng = np.random.default_rng(7)

@@ -1,5 +1,5 @@
-"""Smoke-run every script in examples/ (VERDICT r2 weak #5: the demo
-surface must not rot with API changes).
+"""Smoke-run every script in examples/ (the demo surface must not rot
+with API changes).
 
 Each example is a self-contained ``main()`` with its own quality
 asserts (SDR thresholds, recovery errors, label accuracy), so running

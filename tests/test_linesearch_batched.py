@@ -1,7 +1,7 @@
 """Parallel (batched) backtracking must reproduce sequential halving
 exactly: the accepted candidate is the first acceptable step in halving
 order, and underflows that occur before a later acceptable candidate
-still win (VERDICT r2 item 7)."""
+still win."""
 import numpy as np
 import pytest
 
@@ -59,7 +59,7 @@ def test_batched_underflow_termination_matches():
 
 
 def test_resolve_width_auto():
-    """None/'auto' resolves by platform (8 on TPU, sequential elsewhere);
+    """None/'auto' resolves by platform (8 on GPU, sequential elsewhere);
     integers pass through; a mesh's devices decide over the default
     backend."""
     import jax
@@ -73,14 +73,14 @@ def test_resolve_width_auto():
     assert resolve_width(None) == 0
     assert resolve_width("auto") == 0
     assert resolve_width(None, mesh=make_mesh(8)) == 0
-    # TPU backend resolves auto to the batched width
+    # GPU backend resolves auto to the batched width
     orig = jax.default_backend
-    jax.default_backend = lambda: "tpu"
+    jax.default_backend = lambda: "gpu"
     try:
         assert resolve_width(None) == 8
         assert resolve_width("auto") == 8
         assert resolve_width(0) == 0          # explicit always wins
-        # a CPU mesh overrides a TPU default backend
+        # a CPU mesh overrides a GPU default backend
         assert resolve_width(None, mesh=make_mesh(8)) == 0
     finally:
         jax.default_backend = orig

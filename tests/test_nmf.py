@@ -166,7 +166,7 @@ def test_h_fixed_parity():
 
 
 def test_data_dtype_bf16_storage():
-    # data_dtype stores V in bf16 on the gram path; MU dots feed the MXU
+    # data_dtype stores V in bf16 on the gram path; MU dots feed the matmul
     # the storage dtype and accumulate f32, so the trajectory must stay
     # close to the f32 run (V itself is quantized, so this is loose).
     import numpy as np

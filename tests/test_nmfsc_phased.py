@@ -1,6 +1,6 @@
 """Phase-split nmfsc dispatch (models/nmfsc_phased.py) must reproduce
 the fused single-program solver BIT-identically: same math, same order,
-different program partitioning (VERDICT r2 item 1)."""
+different program partitioning."""
 import numpy as np
 import pytest
 

@@ -60,7 +60,7 @@ def test_streaming_single_block():
 
 
 def test_streaming_mesh_matches_single_device(tmp_path):
-    """VERDICT item: the out-of-core path composes with multi-chip — a
+    """The out-of-core path composes with multi-chip — a
     mesh-sharded streamed run is (tolerance-)identical to the
     single-device streamed run, on a memmap with a non-divisible tail
     block and non-divisible m."""
